@@ -1,8 +1,7 @@
-"""Decompose the full-IPM per-iteration cost on the real TPU: time the major
+"""Decompose the full-IPM per-iteration cost on the GPU: time the major
 sub-programs of one iteration (derivative assembly, KKT solve, residual/merit
 evaluations) separately, in f64 and f32, to locate the latency floor that the
-suite-ladder warm numbers sit on (latency_lab.py r4: at N=250 scan-f32 and
-cr-f32 both cost ~27 ms/iter — the solve is NOT the bottleneck there).
+suite-ladder warm numbers sit on.
 
 Usage: python benchmarks/iter_breakdown.py [--n 250] [--problem beam]
 """
@@ -41,8 +40,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from ctdirect_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from ctdirect_tpu import transcribe

@@ -2,7 +2,7 @@
 (compile-free) suite totals vs the reference's published CPU numbers
 (NLP_comparison.md:15–20), green-cell counts, and a markdown table.
 
-Usage: python benchmarks/ladder_report.py SWEEP_r04.json [--markdown]
+Usage: python benchmarks/ladder_report.py sweep.json [--markdown]
 """
 
 from __future__ import annotations

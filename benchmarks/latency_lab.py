@@ -1,13 +1,13 @@
 """Single-solve latency lab: measure warm (compile-free) full-IPM solve time
-across KKT configurations on the real TPU — the workload where the reference
+across KKT configurations on the GPU — the workload where the reference
 (CTDirect+Ipopt on CPU) sets its published suite numbers
 (test/archives/NLP_comparison.md:15–20: 0.6/1.4/3.8/18.0/74.8 s suite totals
 at N=250..5000).
 
 Configs: kkt_mode x solve_dtype. "structured" is the O(N)-depth sequential
-block elimination; "cr" is the O(log N)-depth cyclic reduction — for a single
-instance the TPU is latency-bound on the scan, so CR should win at every N.
-"f32" factors/solves the blocks in native f32 inside the f64 Newton loop
+block elimination; "cr" is the O(log N)-depth cyclic reduction — a single
+instance is latency-bound on the scan's N sequential steps.
+"f32" factors/solves the blocks in f32 inside the f64 Newton loop
 (inexact Newton; IPMOptions.kkt_solve_dtype).
 
 Usage: python benchmarks/latency_lab.py [--problems beam,goddard]
@@ -43,8 +43,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from ctdirect_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from ctdirect_tpu import transcribe
     from ctdirect_tpu.problems import get_problem

@@ -1,10 +1,10 @@
 """Microbenchmark: batched tiny-block linear algebra, batch-MAJOR (B, m, n, n)
-vs batch-MINOR / lane-layout (m, n, n, B) on TPU.
+vs batch-MINOR / lane-layout (m, n, n, B).
 
-Validates the layout decision behind the lane-minor cyclic-reduction solver:
-on TPU the last two array dims map to (sublane, lane) = (8, 128) tiles, so a
-trailing (5, 5) block wastes ~95% of every tile, while a trailing B=512 batch
-axis fills lanes exactly.
+Measures the layout decision behind the lane-minor cyclic-reduction solver:
+with the batch axis last, every tiny-block operation is an elementwise op
+over contiguous (B,) slabs instead of a batch of tiny (5, 5) matrix
+products. Which layout wins on the GPU is not measured yet.
 
 Usage: python benchmarks/layout_micro.py [--cpu] [--b 512] [--m 128] [--n 5]
 """
@@ -62,7 +62,7 @@ def main():
     mm_minor = jax.jit(lambda A: jnp.einsum("mijB,mjkB->mikB", A, A))
 
     def mm_minor_unrolled(A):
-        # explicit sum over the tiny contraction index — pure VPU ops
+        # explicit sum over the tiny contraction index — elementwise ops
         return sum(
             A[:, :, j, None, :] * A[:, None, j, :, :] for j in range(n)
         )

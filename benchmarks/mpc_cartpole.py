@@ -4,8 +4,7 @@ warm-started batched instances per chip.
 Unlike the headline double-integrator tick (a near-QP), the cart-pole horizon
 problem carries ACTIVE path/box constraints at the optimum (|u| <= 12 and the
 cart box saturate during the swing), so the fixed-iteration resolve must track
-a switching active set across ticks — the robustness case VERDICT.md weak-4
-asked for. Per tick: inject measured x0 through the boundary rhs, shift the
+a switching active set across ticks — the robustness case for the tick. Per tick: inject measured x0 through the boundary rhs, shift the
 plan, run K predictor-corrector iterations over the structured KKT.
 
 Usage: python benchmarks/mpc_cartpole.py [--cpu] [--batch 1024] [--n 60]
@@ -47,8 +46,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from ctdirect_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 

@@ -12,11 +12,11 @@ This script is runnable on any JAX distributed environment:
   single host (all local devices):
       python benchmarks/multihost.py --batch-per-chip 512
 
-  multi-host (one process per host; standard JAX distributed init over DCN):
+  multi-host (one process per host; standard JAX distributed init):
       python benchmarks/multihost.py --coordinator <host0>:8476 \
           --num-hosts 4 --host-id $RANK --batch-per-chip 512
 
-  simulation (no TPU; 8 virtual CPU devices):
+  simulation (no GPU; 8 virtual CPU devices):
       python benchmarks/multihost.py --simulate 8
 
 Protocol (see SCALING.md): each host contributes its local devices to one
@@ -50,7 +50,7 @@ def main():
     ap.add_argument("--num-hosts", type=int, default=1)
     ap.add_argument("--host-id", type=int, default=0)
     ap.add_argument("--simulate", type=int, default=0,
-                    help="run on N virtual CPU devices instead of TPU")
+                    help="run on N virtual CPU devices instead of the GPUs")
     ap.add_argument("--batch-per-chip", type=int, default=512)
     ap.add_argument("--n", type=int, default=100, help="grid size")
     ap.add_argument("--iters", type=int, default=3, help="resolve iterations")
@@ -139,7 +139,7 @@ def main():
     global_max = jax.jit(jnp.max, out_shardings=NamedSharding(mesh, P()))
     kkt_max = float(global_max(kkt))
 
-    # ---- collective-cost isolation (VERDICT r4 item 8) ----
+    # ---- collective-cost isolation ----
     # The production tick has ZERO hot-path collectives (batch axis is
     # embarrassingly parallel). To measure what a dp-axis collective WOULD
     # cost at this process/chip count, time the same tick loop with one

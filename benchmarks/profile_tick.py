@@ -49,8 +49,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from ctdirect_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from ctdirect_tpu import transcribe
     from ctdirect_tpu.problems import get_problem
@@ -128,47 +129,54 @@ def main():
         f"vs tick {t_tick*1e3:.2f} ms"
     )
 
-    # ---- roofline / MFU (VERDICT.md item 8) ----
+    # ---- roofline of the tick program (device runs only) ----
+    if args.cpu:
+        log("roofline: not measured (CPU run)")
+        return
     stats = roofline(ctrl._tick, t_tick, (states, x0))
-    if stats:
-        log(
-            f"roofline: {stats['gflops']:.1f} GFLOP/s ({100*stats['mfu']:.2f}% of "
-            f"{stats['peak_tflops']:.0f} TFLOP/s f32 peak), "
-            f"{stats['gbps']:.1f} GB/s HBM ({100*stats['hbm_util']:.1f}% of "
-            f"{stats['peak_gbps']:.0f} GB/s) -> "
-            f"{'BANDWIDTH' if stats['hbm_util'] > stats['mfu'] else 'COMPUTE'}-dominated"
-        )
+    log(
+        f"roofline: {stats['gflops']:.1f} GFLOP/s ({100*stats['fp64_peak_share']:.2f}% of "
+        f"{stats['peak_tflops_fp64']:.0f} TFLOP/s FP64 peak), "
+        f"{stats['gbps']:.1f} GB/s HBM ({100*stats['hbm_share']:.1f}% of "
+        f"{stats['peak_gbps']:.0f} GB/s) -> "
+        f"{'BANDWIDTH' if stats['hbm_share'] > stats['fp64_peak_share'] else 'COMPUTE'}-bound"
+    )
 
 
-# per-chip peaks; v5e ("v5 lite") from the public spec sheet
-_PEAKS = {
-    "v5 lite": dict(tflops_f32=98.6, gbps=819.0),
-    "v5litepod": dict(tflops_f32=98.6, gbps=819.0),
-    "v5p": dict(tflops_f32=229.0, gbps=2765.0),
-    "v4": dict(tflops_f32=137.5, gbps=1228.0),
-    "cpu": dict(tflops_f32=1.0, gbps=50.0),
-}
+# Published per-card peaks, dense rates without sparsity, from NVIDIA's H100
+# data sheet. Keyed by a substring of jax `device_kind`; checked in order.
+# tflops_fp64: FP64 vector (CUDA cores) — the tick and the IPM run in f64
+# outside the tensor cores, so roofline shares divide by this row. The data
+# sheet's FP64 tensor-core and FP32 rates (SXM: 67 and 67 TFLOP/s) are not
+# divided by anywhere.
+PEAKS = (
+    ("H100 PCIe", dict(tflops_fp64=26.0, gbps=2000.0)),
+    ("H100 NVL", dict(tflops_fp64=30.0, gbps=3900.0)),
+    ("H100", dict(tflops_fp64=34.0, gbps=3350.0)),
+)
+
+
+def peaks_for(device_kind: str) -> dict:
+    """Peak row for a jax `device_kind`; an unknown device is an error."""
+    for key, row in PEAKS:
+        if key.lower() in device_kind.lower():
+            return row
+    raise KeyError(f"no published peaks for device kind {device_kind!r}")
 
 
 def roofline(jitted, wall_s, args):
-    """XLA cost analysis of a compiled function -> achieved FLOP/s + HBM BW vs
-    the chip's peaks. f64 arithmetic is software-emulated on TPU, so 'mfu' here
-    is the fraction of f32 peak the XLA-counted f64 op stream achieves — the
-    honest statement is the HBM utilisation (this workload is VPU/bandwidth
-    bound: tiny-block Gauss-Jordan has no MXU-shaped matmuls)."""
+    """XLA cost analysis of a compiled function -> achieved FLOP/s and bytes/s
+    against the card's published peaks. `fp64_peak_share` divides by the FP64
+    vector peak (the tick is an f64 program); `hbm_share` by HBM bandwidth.
+    XLA's counts are the compiled program's, not an algorithmic minimum."""
     import jax
 
-    try:
-        cost = jitted.lower(*args).compile().cost_analysis()
-        if isinstance(cost, (list, tuple)):
-            cost = cost[0]
-        flops = float(cost.get("flops", 0.0))
-        bts = float(cost.get("bytes accessed", 0.0))
-    except Exception as e:  # noqa: BLE001 — cost analysis is backend-dependent
-        log(f"roofline: cost_analysis unavailable ({e})")
-        return None
-    kind = jax.devices()[0].device_kind.lower()
-    peaks = next((v for k, v in _PEAKS.items() if k in kind), _PEAKS["cpu"])
+    peaks = peaks_for(jax.devices()[0].device_kind)
+    cost = jitted.lower(*args).compile().cost_analysis()
+    if isinstance(cost, (list, tuple)):
+        cost = cost[0]
+    flops = float(cost.get("flops", 0.0))
+    bts = float(cost.get("bytes accessed", 0.0))
     gflops = flops / wall_s / 1e9
     gbps = bts / wall_s / 1e9
     return dict(
@@ -176,9 +184,9 @@ def roofline(jitted, wall_s, args):
         bytes=bts,
         gflops=gflops,
         gbps=gbps,
-        mfu=gflops / (peaks["tflops_f32"] * 1e3),
-        hbm_util=gbps / peaks["gbps"],
-        peak_tflops=peaks["tflops_f32"],
+        fp64_peak_share=gflops / (peaks["tflops_fp64"] * 1e3),
+        hbm_share=gbps / peaks["gbps"],
+        peak_tflops_fp64=peaks["tflops_fp64"],
         peak_gbps=peaks["gbps"],
     )
 

@@ -1,4 +1,4 @@
-"""Dev repro for the round-1 failing cases (VERDICT.md items 1/3):
+"""Dev repro for the round-1 failing cases:
 truck_trailer, swimmer, GL2 on free-t0/tf Mayer. Run on CPU for a fast loop.
 
 Usage: python benchmarks/repro_fails.py [names...] [grid=N] [scheme='name'] [opt=val...]

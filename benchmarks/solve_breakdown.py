@@ -1,9 +1,8 @@
 """Per-component timing of one structured-KKT IPM iteration at large N.
 
-The suite-ladder rungs at N >= 2500 are per-ITERATION-cost bound (measured
-r5: ~10-13 ms/iter at N=1000 but ~70-100 ms/iter at N=2500 on v5e). This
-harness times the pieces of an iteration separately so the optimization
-target is measured, not guessed:
+The suite-ladder rungs at N >= 2500 are expected to be per-ITERATION-cost
+bound. This harness times the pieces of an iteration separately so the
+optimization target is measured, not guessed:
 
     prepare      vmapped per-step Lagrangian Hessians + Jacobians
     assemble     block scatter into (A, B, E, F, r, rb)
@@ -51,10 +50,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.expanduser("~/.cache/jax_comp")
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from ctdirect_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 

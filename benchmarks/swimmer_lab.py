@@ -1,4 +1,4 @@
-"""Swimmer convergence lab (VERDICT r2 item 6): find a (grid, scheme, options,
+"""Swimmer convergence lab: find a (grid, scheme, options,
 init) cell where the Purcell swimmer reaches TRUE KKT success at a
 reference-quality objective (ref 0.984273, swimmer.jl:139), so the BETTER_OK
 escape hatch in tests/test_all_ocp.py can be retired.

@@ -1,4 +1,4 @@
-"""Truck-trailer convergence lab (VERDICT r2 item 6): find a (grid, scheme,
+"""Truck-trailer convergence lab: find a (grid, scheme,
 options, init) cell where the jackknife parking fixture reaches TRUE KKT
 success at a reference-quality objective (ref 59.28, truck_trailer.jl:7-119),
 so the FEASIBILITY_OK escape hatch in tests/test_all_ocp.py can be retired.

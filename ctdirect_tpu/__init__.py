@@ -1,12 +1,12 @@
-"""ctdirect_tpu — a TPU-native direct-transcription optimal-control framework.
+"""ctdirect_tpu — a direct-transcription optimal-control framework in JAX.
 
 Converts ODE-constrained optimal control problems (OCPs) into finite-dimensional
 nonlinear programs (DOCPs) via collocation / direct shooting, and solves them with a
 from-scratch structure-exploiting interior-point method written in JAX — so the whole
-solve jits, vmaps across thousands of problem instances, and shards over TPU meshes.
+solve jits, vmaps across thousands of problem instances, and shards over device meshes.
 
-Capability blueprint: control-toolbox/CTDirect.jl (see /root/repo/SURVEY.md). This is a
-re-design for TPU, not a port: residuals are evaluated vectorized over the whole
+Capability blueprint: control-toolbox/CTDirect.jl (see SURVEY.md). This is a
+re-design for an accelerator, not a port: residuals are evaluated vectorized over the whole
 collocation grid, derivatives come from JAX AD (no sparsity detection or hand patterns),
 and the KKT system is solved by block-structured factorization instead of a general
 sparse LU.

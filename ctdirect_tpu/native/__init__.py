@@ -1,11 +1,12 @@
 """Native (C++) runtime pieces, loaded via ctypes.
 
 The reference stack's performance-critical linear algebra lives in native code
-(Ipopt C++, MUMPS Fortran — SURVEY.md §2.2). Here the TPU compute path is JAX,
-and the native library provides the HOST-side counterpart: a structure-
-exploiting block-tridiagonal + arrowhead KKT solver (csrc/blocktri.cpp) used as
-an independent correctness oracle for the JAX solvers and as a CPU fallback
-(OpenMP-batched). Built on first use with g++ — no external dependencies."""
+(Ipopt C++, MUMPS Fortran — SURVEY.md §2.2). Here the device compute path is
+JAX, and the native library is a HOST oracle: a structure-exploiting
+block-tridiagonal + arrowhead KKT solver (csrc/blocktri.cpp, per-block pivoted
+LU in f64, OpenMP-batched) that the tests and chip_smoke.py check the JAX
+solvers against. No solver path falls back to it. Built on first use with
+g++ into libblocktri.so next to this file (not committed)."""
 
 from __future__ import annotations
 

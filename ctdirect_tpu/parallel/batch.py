@@ -1,7 +1,8 @@
 """Batched solves: vmap the ENTIRE interior-point solve across problem instances.
 
-This is the TPU answer to the reference's single-instance CPU solves (SURVEY.md
-§2.3): thousands of warm-started MPC instances solve concurrently per chip. Each
+This is the batched answer to the reference's single-instance CPU solves
+(SURVEY.md §2.3): thousands of warm-started MPC instances solve concurrently
+on one device. Each
 instance may have its own initial guess AND its own constraint right-hand sides
 (e.g. per-instance initial state x0 arrives through the boundary-constraint
 bounds), so the batch axis maps over (z0, cl, cu) — and optionally (zl, zu).

@@ -97,10 +97,10 @@ class MPCController:
             )
         else:
             # equilibration default OFF on the tick: the warm RTI resolve is
-            # mildly conditioned by construction (measured kkt 2.8e-14 at f32
-            # without it) and the tick is HBM-bound — the extra scaling
-            # passes would cost bytes for nothing. Cold/ill-conditioned
-            # solves (interface.solve path) default it ON instead.
+            # mildly conditioned by construction (it reaches machine-level
+            # kkt at f32 without it), so the extra scaling passes would cost
+            # memory traffic for nothing. Cold/ill-conditioned solves
+            # (interface.solve path) default it ON instead.
             kkt = StructuredKKT(
                 docp, algorithm=kkt_algorithm, solve_dtype=kkt_solve_dtype,
                 equilibrate=kkt_equilibrate, pivot=kkt_pivot,

@@ -3,7 +3,7 @@
 This is the SURVEY.md §7 "structural analogue of context parallelism": the
 collocation KKT chain (one super-block per time step) is sharded over a mesh
 axis, and each cyclic-reduction level combines batched local block algebra with
-ONE neighbor halo exchange (`jax.lax.ppermute` — rides ICI on hardware). After
+ONE neighbor halo exchange (`jax.lax.ppermute` — NVLink between GPUs). After
 log2(N) levels a single root block remains (owned by shard 0, then broadcast),
 and back-substitution retraces the levels with the reverse halo exchanges.
 
@@ -30,7 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ctdirect_tpu.solver.kkt import gj_inverse, gj_solve
+from ctdirect_tpu.solver.kkt import PREC, gj_inverse, gj_solve
 
 
 def _halo_from_left(x, axis_name):
@@ -70,19 +70,19 @@ def _cr_local_level(A, Bp, E, r, axis_name):
     Eo, ro = E[1::2], r[1::2]
     Ainv_o = jax.vmap(gj_inverse)(Ao)
 
-    CL = jnp.einsum("nij,njk->nik", Bl, Ainv_o)
-    CR = jnp.einsum("nji,njk->nik", Br, Ainv_o)
+    CL = jnp.einsum("nij,njk->nik", Bl, Ainv_o, precision=PREC)
+    CR = jnp.einsum("nji,njk->nik", Br, Ainv_o, precision=PREC)
 
-    A_new = Ae - jnp.einsum("nij,nkj->nik", CL, Bl)
-    E_new = E[0::2] - jnp.einsum("nij,njk->nik", CL, Eo)
-    r_new = r[0::2] - jnp.einsum("nij,nj->ni", CL, ro)
+    A_new = Ae - jnp.einsum("nij,nkj->nik", CL, Bl, precision=PREC)
+    E_new = E[0::2] - jnp.einsum("nij,njk->nik", CL, Eo, precision=PREC)
+    r_new = r[0::2] - jnp.einsum("nij,nj->ni", CL, ro, precision=PREC)
 
     # right-neighbor contribution of odd_j lands on even_{j+1}: within the
     # shard for j < L/2-1; the LAST odd's contribution goes to the right
     # neighbor's first even -> halo shift
-    contribA = jnp.einsum("nij,njk->nik", CR, Br)
-    contribE = jnp.einsum("nij,njk->nik", CR, Eo)
-    contribr = jnp.einsum("nij,nj->ni", CR, ro)
+    contribA = jnp.einsum("nij,njk->nik", CR, Br, precision=PREC)
+    contribE = jnp.einsum("nij,njk->nik", CR, Eo, precision=PREC)
+    contribr = jnp.einsum("nij,nj->ni", CR, ro, precision=PREC)
     A_new = A_new.at[1:].add(-contribA[:-1])
     E_new = E_new.at[1:].add(-contribE[:-1])
     r_new = r_new.at[1:].add(-contribr[:-1])
@@ -90,10 +90,10 @@ def _cr_local_level(A, Bp, E, r, axis_name):
     E_new = E_new.at[:1].add(-_halo_from_left(contribE, axis_name))
     r_new = r_new.at[:1].add(-_halo_from_left(contribr, axis_name))
 
-    B_new = -jnp.einsum("nij,njk->nik", CL, Br)  # even_j -> even_{j+1}
+    B_new = -jnp.einsum("nij,njk->nik", CL, Br, precision=PREC)  # even_j -> even_{j+1}
 
-    dF = -jnp.einsum("nji,njk,nkl->il", Eo, Ainv_o, Eo)
-    drb = -jnp.einsum("nji,njk,nk->i", Eo, Ainv_o, ro)
+    dF = -jnp.einsum("nji,njk,nkl->il", Eo, Ainv_o, Eo, precision=PREC)
+    drb = -jnp.einsum("nji,njk,nk->i", Eo, Ainv_o, ro, precision=PREC)
     level = (Ainv_o, Bl, Br, Eo, ro)
     return A_new, B_new, E_new, r_new, dF, drb, level
 
@@ -107,11 +107,11 @@ def _cr_local_back(level, X, xb, axis_name):
     x_next = x_next.at[-1:].add(_halo_from_right(X, axis_name))
     rhs = (
         ro
-        - jnp.einsum("nji,nj->ni", Bl, X)
-        - jnp.einsum("nij,nj->ni", Br, x_next)
-        - jnp.einsum("nij,j->ni", Eo, xb)
+        - jnp.einsum("nji,nj->ni", Bl, X, precision=PREC)
+        - jnp.einsum("nij,nj->ni", Br, x_next, precision=PREC)
+        - jnp.einsum("nij,j->ni", Eo, xb, precision=PREC)
     )
-    x_o = jnp.einsum("nij,nj->ni", Ainv_o, rhs)
+    x_o = jnp.einsum("nij,nj->ni", Ainv_o, rhs, precision=PREC)
     m = X.shape[0]
     return jnp.stack([X, x_o], axis=1).reshape(2 * m, bs)
 
@@ -135,7 +135,7 @@ def dcr_solve(A, Bp, E, r, F, rb, axis_name, local_len: int, n_dev: int):
         L //= 2
 
     # phase 2: gather the D remaining blocks everywhere and finish redundantly
-    # (D is small; all_gather over ICI then identical local math — keeps every
+    # (D is small; one all_gather then identical local math — keeps every
     # device's back-substitution data local)
     Ag = jax.lax.all_gather(A, axis_name, tiled=True)  # (D, bs, bs)
     Bg = jax.lax.all_gather(Bp, axis_name, tiled=True)
@@ -152,18 +152,18 @@ def dcr_solve(A, Bp, E, r, F, rb, axis_name, local_len: int, n_dev: int):
         Bl, Br = Bd[0::2], Bd[1::2]
         Eo, ro = Ed[1::2], rd[1::2]
         Ainv_o = jax.vmap(gj_inverse)(Ao)
-        CL = jnp.einsum("nij,njk->nik", Bl, Ainv_o)
-        CR = jnp.einsum("nji,njk->nik", Br, Ainv_o)
-        A_new = Ae - jnp.einsum("nij,nkj->nik", CL, Bl)
-        A_new = A_new.at[1:].add(-jnp.einsum("nij,njk->nik", CR, Br)[:-1])
-        E_new = Ed[0::2] - jnp.einsum("nij,njk->nik", CL, Eo)
-        E_new = E_new.at[1:].add(-jnp.einsum("nij,njk->nik", CR, Eo)[:-1])
-        r_new = rd[0::2] - jnp.einsum("nij,nj->ni", CL, ro)
-        r_new = r_new.at[1:].add(-jnp.einsum("nij,nj->ni", CR, ro)[:-1])
-        B_new = -jnp.einsum("nij,njk->nik", CL, Br)
+        CL = jnp.einsum("nij,njk->nik", Bl, Ainv_o, precision=PREC)
+        CR = jnp.einsum("nji,njk->nik", Br, Ainv_o, precision=PREC)
+        A_new = Ae - jnp.einsum("nij,nkj->nik", CL, Bl, precision=PREC)
+        A_new = A_new.at[1:].add(-jnp.einsum("nij,njk->nik", CR, Br, precision=PREC)[:-1])
+        E_new = Ed[0::2] - jnp.einsum("nij,njk->nik", CL, Eo, precision=PREC)
+        E_new = E_new.at[1:].add(-jnp.einsum("nij,njk->nik", CR, Eo, precision=PREC)[:-1])
+        r_new = rd[0::2] - jnp.einsum("nij,nj->ni", CL, ro, precision=PREC)
+        r_new = r_new.at[1:].add(-jnp.einsum("nij,nj->ni", CR, ro, precision=PREC)[:-1])
+        B_new = -jnp.einsum("nij,njk->nik", CL, Br, precision=PREC)
         B_new = B_new.at[-1].set(jnp.zeros_like(B_new[-1]))
-        Fg = Fg - jnp.einsum("nji,njk,nkl->il", Eo, Ainv_o, Eo)
-        rbg = rbg - jnp.einsum("nji,njk,nk->i", Eo, Ainv_o, ro)
+        Fg = Fg - jnp.einsum("nji,njk,nkl->il", Eo, Ainv_o, Eo, precision=PREC)
+        rbg = rbg - jnp.einsum("nji,njk,nk->i", Eo, Ainv_o, ro, precision=PREC)
         glevels.append((Ainv_o, Bl, Br, Eo, ro))
         Ad, Bd, Ed, rd = A_new, B_new, E_new, r_new
         M //= 2
@@ -181,11 +181,11 @@ def dcr_solve(A, Bp, E, r, F, rb, axis_name, local_len: int, n_dev: int):
         x_next = jnp.concatenate([Xg[1:], jnp.zeros((1, bs), Xg.dtype)], axis=0)
         rhs = (
             ro
-            - jnp.einsum("nji,nj->ni", Bl, Xg)
-            - jnp.einsum("nij,nj->ni", Br, x_next)
-            - jnp.einsum("nij,j->ni", Eo, xb)
+            - jnp.einsum("nji,nj->ni", Bl, Xg, precision=PREC)
+            - jnp.einsum("nij,nj->ni", Br, x_next, precision=PREC)
+            - jnp.einsum("nij,j->ni", Eo, xb, precision=PREC)
         )
-        x_o = jnp.einsum("nij,nj->ni", Ainv_o, rhs)
+        x_o = jnp.einsum("nij,nj->ni", Ainv_o, rhs, precision=PREC)
         Xg = jnp.stack([Xg, x_o], axis=1).reshape(2 * m, bs)
 
     # each device takes its slot from the redundantly-computed global solution
@@ -241,7 +241,7 @@ class InsideTimeShardKKT:
     """StructuredKKT variant for use INSIDE an open shard_map region (the 2-D
     batch x time MPC mesh, parallel/mpc.py): block assembly runs replicated
     over the time axis, each device slices its shard of the chain, the solve is
-    the distributed CR (ppermute/psum over `axis` — ICI on hardware), and one
+    the distributed CR (ppermute/psum over `axis`), and one
     all_gather rebuilds the full step vector for the replicated IPM update.
 
     This is the composition the BASELINE "linear multi-host scaling" config

@@ -43,7 +43,7 @@ def cartpole() -> Problem:
     BASELINE.json config 3 fixture. Active constraints at the optimum: the cart
     position box |x| <= 0.7 and the force box |u| <= 12 both saturate during the
     swing, so warm-started MPC on this problem tracks a switching active set
-    (the property VERDICT.md §weak-4 requires of the MPC bench)."""
+    (the robustness property an MPC benchmark needs)."""
     pre = PreOCP("cartpole")
     pre.state(4).control(1)
     pre.time(t0=0.0, tf=2.0)
@@ -72,7 +72,7 @@ def orbit_transfer() -> Problem:
     phase free). Thrust magnitude path-constrained: |u|^2 <= Tmax^2 with
     Tmax = 0.1.
 
-    Oracle design (VERDICT r2 weak-3): the problem is multi-modal by
+    Oracle design: the problem is multi-modal by
     revolution count — every extra revolution buys marginally less fuel — so
     the tf deadline PINS the local optimum: at the optimum tf saturates the
     deadline and the revolution count is forced. The deadline is 11.0 (~1.75

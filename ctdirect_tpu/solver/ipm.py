@@ -88,11 +88,10 @@ class IPMOptions:
     # reduction, O(log N) depth) | "dense" (correctness oracle, small N only)
     kkt_mode: str = "structured"
     # Mixed-precision KKT block solve: "f32" factors+solves the structured
-    # blocks in float32 (native on TPU; f64 is software-emulated) while
-    # residuals, assembly and the applied step stay f64 — inexact Newton with
-    # direction error ~cond*1e-7 per iteration (StructuredKKT.solve_dtype;
-    # measured 7.8x on the MPC tick, BENCH_MIXED_PRECISION.json). None = full
-    # precision. Ignored by kkt_mode="dense".
+    # blocks in float32 while residuals, assembly and the applied step stay
+    # f64 — inexact Newton with direction error ~cond*1e-7 per iteration
+    # (StructuredKKT.solve_dtype). None = full precision. Whether it beats
+    # full f64 on the GPU is not measured yet. Ignored by kkt_mode="dense".
     kkt_solve_dtype: Optional[str] = None
     # f64 iterative-refinement sweeps around the f32 block solve (cond(K) ~
     # N^2 makes bare-f32 directions degrade convergence at large N; see

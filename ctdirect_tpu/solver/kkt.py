@@ -19,10 +19,16 @@ reference path for small problems and the correctness oracle for the structured
 path. `StructuredKKT` (structured_kkt.py) assembles per-step blocks and solves
 the block-tridiagonal + arrowhead system in O(N) with no general factorization.
 
-TPU note: XLA:TPU has no f64 LU/LuDecomposition kernel, so everything here that
-must run on TPU in f64 uses hand-rolled Gauss-Jordan elimination (pure
-arithmetic — pivotless, justified for the symmetric quasi-definite matrices the
-regularized IPM produces: H-block PD + C-block ND, Vanderbei 1995)."""
+The dense solve uses `jnp.linalg.solve` (LU) in every precision. The small
+block inverses of the structured engines use hand-rolled pivoted Gauss-Jordan
+elimination (`gj_inverse` / `gj_solve` below): pure arithmetic that vmaps and
+unrolls into the surrounding fusions.
+
+`PREC` is the precision every `dot_general` of the block solvers carries.
+Under mixed precision the block solve runs in f32, and XLA:GPU may run f32
+products at default precision in TF32 (~10 mantissa bits), which would
+corrupt even the one-hot pivot-row selections. HIGHEST keeps them exact f32;
+it changes nothing on the CPU or for f64 operands."""
 
 from __future__ import annotations
 
@@ -31,18 +37,20 @@ from typing import Any, Callable, Optional
 import jax
 import jax.numpy as jnp
 
+PREC = jax.lax.Precision.HIGHEST
+
 
 # ----------------------------------------------------------------------------
-# Small-matrix kernels (pivotless, lapack-free; fine for quasi-definite blocks)
+# Small-matrix kernels (pivoted Gauss-Jordan, lapack-free)
 # ----------------------------------------------------------------------------
 
 
 def _gj_eliminate(M: jnp.ndarray, n: int) -> jnp.ndarray:
     """Gauss-Jordan elimination WITH partial pivoting on an augmented (n, n+k)
-    matrix. Row swaps are data movement (dynamic_update_slice), not lapack —
-    this runs in f64 on TPU where LuDecomposition does not. Partial pivoting is
-    required: interior-point KKT matrices have structurally zero diagonal
-    entries (unbounded primal variables with zero Lagrangian curvature)."""
+    matrix. Row swaps are data movement (dynamic_update_slice), not lapack.
+    Partial pivoting is required: interior-point KKT matrices have
+    structurally zero diagonal entries (unbounded primal variables with zero
+    Lagrangian curvature)."""
 
     def body(j, M):
         col = jnp.abs(M[:, j])
@@ -80,7 +88,7 @@ def gj_solve(A: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
 
 
 class DenseKKT:
-    """Dense W/J via jax.hessian / jax.jacfwd; dense pivotless solve.
+    """Dense W/J via jax.hessian / jax.jacfwd; dense LU solve.
 
     Suitable for moderate problem sizes (the v0 path and the correctness oracle
     for StructuredKKT). f_user/c_user are the UNSCALED problem callables."""
@@ -109,12 +117,7 @@ class DenseKKT:
         Dreg = Drow + delta_c
         KKT = jnp.block([[Hbar, J.T], [J, -jnp.diag(Dreg)]])
         rhs = -jnp.concatenate([rz, rp])
-        if jax.default_backend() == "cpu" or KKT.dtype != jnp.float64:
-            # lapack LU (CPU) / XLA LU (TPU f32) are available and faster
-            sol = jnp.linalg.solve(KKT, rhs)
-        else:
-            # TPU f64: no LuDecomposition kernel — pivoted Gauss-Jordan
-            sol = gj_solve(KKT, rhs[:, None])[:, 0]
+        sol = jnp.linalg.solve(KKT, rhs)
         return sol[: self.nz], sol[self.nz :]
 
     def diag_scale(self, data):

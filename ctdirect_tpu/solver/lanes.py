@@ -1,20 +1,20 @@
 """Lane-minor (batch-minor) small-block linear algebra + cyclic reduction.
 
-TPU arrays are tiled on their LAST TWO dims as (sublane, lane) = (8, 128).
-A batched KKT solve that carries its tiny (bs, bs) blocks in the trailing dims
-— the natural result of `vmap`ping the single-instance solver — wastes ~95% of
-every vector tile and runs ~50x slower than the same arithmetic with the batch
-axis LAST (measured: batched 5x5 pivoted inverse, B=512 x m=128: 89.3 ms
-batch-major vs 1.86 ms lane-minor on v5e, benchmarks/layout_micro.py).
+A batched KKT solve that keeps its tiny (bs, bs) blocks in the trailing dims
+— the natural result of `vmap`ping the single-instance solver — turns every
+block operation into a batch of tiny matrix products. This module keeps the
+batch axis LAST instead: every tensor ends in the batch axis B, block indices
+live in the leading dims, and all tiny-dim contractions are unrolled into
+elementwise multiply-adds over whole (..., B) slabs. The public entry point
+`cr_solve` is a `jax.custom_batching.custom_vmap` wrapper around the
+single-instance cyclic-reduction solve: un-batched callers get the plain
+solver, while ANY `vmap` over it (batched MPC resolve, batched full IPM)
+dispatches here instead of deriving the batch-major layout.
 
-This module is the lane-minor engine: every tensor ends in the batch axis B
-(mapped to lanes), block indices live in sublane/major dims, and all tiny-dim
-contractions are unrolled into elementwise multiply-adds (pure VPU work). The
-public entry point `cr_solve` is a `jax.custom_batching.custom_vmap` wrapper
-around the single-instance cyclic-reduction solve (structured_kkt._cr_solve):
-un-batched callers get the plain solver, while ANY `vmap` over it (batched MPC
-resolve, batched full IPM) dispatches here instead of deriving the
-catastrophic batch-major layout.
+The few contractions that remain `dot_general`s (pivot-row selection, border
+Schur updates) carry `precision=PREC` (kkt.py): the block solve runs in f32
+under mixed precision, and a reduced-precision matmul mode would corrupt the
+pivot rows themselves.
 
 Shapes (lane-minor): A (P, bs, bs, B) diagonal blocks, Bp (P, bs, bs, B)
 super-diagonal couplings (Bp[i]: block i -> i+1, last slot zero), E (P, bs,
@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from ctdirect_tpu.solver.kkt import PREC
 
 
 # ----------------------------------------------------------------------------
@@ -68,8 +70,9 @@ def _gj_eliminate_lanes(M, n, pivot=True):
     without pivoting in exact arithmetic (Vanderbei 1995), but the warm
     resolve's H + Sigma + delta_w diagonal is ~1e-8 on unbounded
     zero-curvature state columns (min-energy double integrator), and the
-    1e8 pivot amplification destroys the solve (measured r5: tick KKT
-    3.0e+02 pivotless vs 1.6e-15 pivoted, identical blocks). Kept only for
+    1e8 pivot amplification destroys the solve (on identical tick blocks
+    the pivotless KKT error blew up while the pivoted one reached machine
+    precision). Kept only for
     experiments on problems whose primal diagonal is uniformly bounded
     away from zero."""
     rows = jnp.arange(n)
@@ -80,7 +83,9 @@ def _gj_eliminate_lanes(M, n, pivot=True):
             colj = jnp.where(rsel >= j, colj, -jnp.inf)
             p = jnp.argmax(colj, axis=-2)  # (..., B)
             oh = (p[..., None, :] == rsel).astype(M.dtype)  # (..., n, B)
-            rowp = jnp.einsum("...rB,...rcB->...cB", oh, M)  # pivot row (..., c, B)
+            rowp = jnp.einsum(
+                "...rB,...rcB->...cB", oh, M, precision=PREC
+            )  # pivot row (..., c, B)
             rowj = M[..., j, :, :]
             # swap rows j and p lane-wise: row p receives row j, row j receives row p
             M = M + oh[..., :, None, :] * (rowj[..., None, :, :] - rowp[..., None, :, :])
@@ -144,8 +149,8 @@ def cr_solve_lanes(A, Bp, E, F, r, rb, pivot=True):
         B_new = B_new.at[-1].set(jnp.zeros((bs, bs, B), dtype))
 
         AiE = bmm(Ainv_o, Eo)  # (M/2, bs, wb, B)
-        F = F - jnp.einsum("msvB,mswB->vwB", Eo, AiE)
-        rb = rb - jnp.einsum("msvB,msB->vB", Eo, bmv(Ainv_o, ro))
+        F = F - jnp.einsum("msvB,mswB->vwB", Eo, AiE, precision=PREC)
+        rb = rb - jnp.einsum("msvB,msB->vB", Eo, bmv(Ainv_o, ro), precision=PREC)
 
         levels.append((Ainv_o, Bl, Br, Eo, ro))
         A, Bp, E, r = A_new, B_new, E_new, r_new
@@ -187,8 +192,8 @@ def _make_cr_solve(pivot):
     @jax.custom_batching.custom_vmap
     def _cr(A, B_, E, F, r, rb):
         # un-batched: chain-in-lanes CR (the suite-ladder hot path) — the
-        # level width rides the 128-wide lane dim instead of the major dim
-        # (see benchmarks/solve_breakdown.py for the measured comparison)
+        # level width rides the minor dim instead of the major dim
+        # (benchmarks/solve_breakdown.py compares the two layouts)
         from ctdirect_tpu.solver.structured_kkt import _cr_solve_chain_lanes
 
         return _cr_solve_chain_lanes(A, B_, E, F, r, rb)
@@ -205,49 +210,13 @@ def _make_cr_solve(pivot):
 # Single instance: A (N, bs, bs), B_ (N-1, bs, bs), E (N, bs, wb),
 # F (wb, wb), r (N, bs), rb (wb) -> (X (N, bs), xb (wb)).
 #
-# Under `jax.vmap`, dispatches to the lane-minor engine (batch axis moved to
-# lanes) instead of the default batching rule — identical math, ~50x faster
-# on TPU for the tiny blocks collocation produces. `cr_solve_nopivot` is the
+# Under `jax.vmap`, dispatches to the lane-minor engine (batch axis moved
+# last) instead of the default batching rule — identical math, without the
+# batch of tiny per-instance matrix products. `cr_solve_nopivot` is the
 # same engine with the Gauss-Jordan pivot passes elided (see
-# _gj_eliminate_lanes) — for the HBM-bound warm-resolve tick on
-# quasi-definite blocks.
+# _gj_eliminate_lanes) — an experiment for quasi-definite blocks only.
 cr_solve = _make_cr_solve(True)
 cr_solve_nopivot = _make_cr_solve(False)
-
-
-def _use_pallas(dtype, P, bs, wb, B):
-    """Dispatch policy for the whole-CR Pallas kernel (solver/pallas_cr.py):
-    CTDIRECT_TPU_PALLAS=1 forces it (still envelope-gated), =0 disables,
-    unset/auto enables it on TPU backends for f32 chains inside the VMEM
-    envelope — but ONLY in x64-disabled processes. Measured r4 on real v5e
-    (benchmarks/pallas_tpu_check.py): with jax_enable_x64 on, Mosaic's layout
-    assignment hard-crashes on a stray 64-bit type (`layout.h:205 Check
-    failed: bitwidth_ <= 32`) even for all-f32 kernel data, and the
-    production IPM/tick programs require process-wide x64 — so the kernel is
-    an x64-off experiment, not the headline path (docs/tpu.md 'Pallas
-    status')."""
-    import os
-
-    from ctdirect_tpu.solver.pallas_cr import LANE_CHUNK, fits_vmem
-
-    flag = os.environ.get("CTDIRECT_TPU_PALLAS", "auto").lower()
-    if flag in ("0", "off", "false"):
-        return False
-    if jax.config.jax_enable_x64:
-        return False  # Mosaic layout crash under x64 (see docstring)
-    eligible = (
-        dtype == jnp.float32
-        and B % min(LANE_CHUNK, B) == 0
-        and fits_vmem(P, bs, wb, min(LANE_CHUNK, B))
-    )
-    if flag in ("1", "on", "true"):
-        return eligible
-    # "auto": on for TPU backends only
-    try:
-        backend = jax.default_backend()
-    except Exception:  # noqa: BLE001
-        return False
-    return eligible and backend not in ("cpu",)
 
 
 def _cr_solve_vmap_impl(axis_size, in_batched, A, B_, E, F, r, rb, pivot):
@@ -264,14 +233,7 @@ def _cr_solve_vmap_impl(axis_size, in_batched, A, B_, E, F, r, rb, pivot):
     ]
     N = args[0].shape[0]
     Ax, Bx, Ex, rx = _pad_pow2_lanes(args[0], args[1], args[2], args[4])
-    P, bs = Ax.shape[0], Ax.shape[1]
-    wb = Ex.shape[-2]
-    if pivot and _use_pallas(Ax.dtype, P, bs, wb, axis_size):
-        from ctdirect_tpu.solver.pallas_cr import cr_solve_lanes_pallas
-
-        X, xb = cr_solve_lanes_pallas(Ax, Bx, Ex, args[3], rx, args[5])
-    else:
-        X, xb = cr_solve_lanes(Ax, Bx, Ex, args[3], rx, args[5], pivot)
+    X, xb = cr_solve_lanes(Ax, Bx, Ex, args[3], rx, args[5], pivot)
     X = jnp.moveaxis(X[:N], -1, 0)
     xb = jnp.moveaxis(xb, -1, 0)
     return (X, xb), (True, True)
@@ -303,15 +265,15 @@ def _pad_pow2_lanes(A, B_, E, r):
 
 def cr_solve_chain_lanes(A, Bp, E, F, r, rb):
     """Single-instance block cyclic reduction + border Schur with the CHAIN
-    dimension in TPU lanes.
+    dimension minor (last).
 
     The plain single-instance CR (structured_kkt._cr_solve) carries its level
-    arrays batch-major, (M, bs, bs): every vmapped Gauss-Jordan op then tiles
-    the TINY trailing (bs, bs) dims onto (8, 128) vector tiles at ~95% waste —
-    the same pathology the batched lanes engine exists to avoid. Here the
-    level arrays are (bs, bs, M): the level width M (large at the top levels —
-    N/2 blocks) fills the lanes, and the cyclic-reduction neighbor couplings
-    become shifts along the lane axis (cheap on TPU). Shrinking-width form:
+    arrays chain-major, (M, bs, bs): every vmapped Gauss-Jordan op then works
+    on the TINY trailing (bs, bs) dims — the same shape the batched lanes
+    engine exists to avoid. Here the level arrays are (bs, bs, M): the level
+    width M (large at the top levels — N/2 blocks) is the minor dim, each
+    block entry is one contiguous (M,) slab, and the cyclic-reduction
+    neighbor couplings become shifts along that axis. Shrinking-width form:
     each level halves M (strided lane slices), so the per-level arrays stay
     exact-width; program size is log2(P) unrolled level bodies like the
     original pre-r4 CR, but each body is ~10 lane-wide ops instead of ~100
@@ -352,8 +314,8 @@ def cr_solve_chain_lanes(A, Bp, E, F, r, rb):
         if half >= 1:
             B_new = B_new.at[..., half - 1].set(jnp.zeros((bs, bs), dtype))
 
-        F = F - jnp.einsum("jiM,jkM->ik", Eo, bmm(Ainv_o, Eo))
-        rb = rb - jnp.einsum("jiM,jM->i", Eo, bmv(Ainv_o, ro))
+        F = F - jnp.einsum("jiM,jkM->ik", Eo, bmm(Ainv_o, Eo), precision=PREC)
+        rb = rb - jnp.einsum("jiM,jM->i", Eo, bmv(Ainv_o, ro), precision=PREC)
 
         levels.append((Ainv_o, Bl, Br, Eo, ro))
         A, Bp, E, r = A_new, B_new, E_new, r_new
@@ -382,7 +344,7 @@ def cr_solve_chain_lanes(A, Bp, E, F, r, rb):
             ro
             - bmv_tn(Bl, x_e)
             - bmv(Br, x_e_next)
-            - jnp.einsum("iwM,w->iM", Eo, xb)
+            - jnp.einsum("iwM,w->iM", Eo, xb, precision=PREC)
         )
         x_o = bmv(Ainv_o, rhs)
         x = jnp.stack([x_e, x_o], axis=-1).reshape(bs, 2 * m)

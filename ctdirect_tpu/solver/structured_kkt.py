@@ -1,6 +1,6 @@
 """Structured KKT operator: block-tridiagonal + arrowhead, solved in O(N).
 
-This is the TPU replacement for the reference stack's general sparse direct
+This replaces the reference stack's general sparse direct
 solvers (MUMPS/umfpack/cuDSS — SURVEY.md §2.2): the condensed IPM system of a
 collocation DOCP is, after interleaving primal step-blocks with their
 constraint multipliers, a symmetric block-TRIDIAGONAL matrix with a dense
@@ -23,10 +23,10 @@ v (free time couples every step — SURVEY.md §7.3.2), the tail state, and the
 final-path/boundary multiplier rows.
 
 The solve is a forward block elimination with border Schur complement and a
-backward substitution (two lax.scans). Block inverses use pivoted Gauss-Jordan
-(kkt.py) — pure arithmetic, so the whole solve runs in f64 on TPU and vmaps
-across problem instances. A log-depth cyclic-reduction variant for time-axis
-sharding builds on the same block data (parallel/cyclic_reduction.py).
+backward substitution (two lax.scans), or block cyclic reduction. Block
+inverses use pivoted Gauss-Jordan (kkt.py) — pure arithmetic that vmaps
+across problem instances. The time-axis-sharded distributed cyclic reduction
+builds on the same block data (parallel/time_shard.py).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ctdirect_tpu.solver.kkt import gj_inverse, gj_solve
+from ctdirect_tpu.solver.kkt import PREC, gj_inverse, gj_solve
 from ctdirect_tpu.transcription.docp import DOCP
 
 
@@ -62,15 +62,16 @@ class StructuredKKT:
                  refine: int = 0, equilibrate: Optional[bool] = None,
                  pivot: bool = True, assemble_dtype=None):
         """algorithm: "scan" (sequential block elimination, O(N) depth) or
-        "cr" (block cyclic reduction, O(log N) depth — the latency-optimal
-        choice on TPU and the basis of the time-axis-sharded solver).
+        "cr" (block cyclic reduction, O(log N) depth — the basis of the
+        batched lane-minor engine and of the time-axis-sharded solver).
 
         solve_dtype: optional lower precision (jnp.float32) for the BLOCK
         SOLVE only — assembly, residuals and the applied step stay f64, so
         this is inexact Newton with relative direction error eta ~ cond*1e-7:
-        each outer iteration still contracts the KKT error by ~eta, and f32
-        arithmetic is native on TPU while f64 is software-emulated (see
-        docs/tpu.md). Leave None for full-precision directions.
+        each outer iteration still contracts the KKT error by ~eta. Every
+        contraction of the solve carries precision=PREC (kkt.py), so the f32
+        solve is true f32, never a reduced matmul mode. Leave None for
+        full-precision directions.
 
         refine: f64 iterative-refinement sweeps around the reduced-precision
         solve (classic mixed-precision: residual r - K@x in f64 on the
@@ -100,9 +101,9 @@ class StructuredKKT:
         # assemble_dtype=jnp.float32: run prepare (the vmapped per-step
         # Hessians/Jacobians) AND assembly in f32 end-to-end — for the warm
         # RTI resolve tick, whose Newton residuals stay f64 while the
-        # direction is inexact anyway (solve_dtype=f32). Halves the HBM
-        # bytes of the tick's biggest producers (the tick is ~86% HBM-bound,
-        # BENCH_r04). Do NOT use for the full IPM: its curvature retry logic
+        # direction is inexact anyway (solve_dtype=f32). Halves the bytes
+        # of the tick's biggest producers; whether that wins is not measured
+        # on the GPU yet. Do NOT use for the full IPM: its curvature retry logic
         # and restoration want f64 block data. None = inherit input dtype.
         self.assemble_dtype = assemble_dtype
         self.docp = docp
@@ -378,9 +379,8 @@ class StructuredKKT:
         block system [I J~^T; J~ -(D + eps) I][dz; lam] = [-g; 0] yields
         lam = -(J~ J~^T + D + eps)^-1 J~ g — the same estimate DenseKKT
         computes (kkt.py), but via the instance's own algorithm/precision
-        (an f64 scan here used to cost ~40 ms at N=250 on TPU — most of the
-        per-solve fixed cost — for an initial GUESS that f32 CR serves
-        equally well). The identity Hessian enters through sigma_z = 1;
+        (an initial GUESS, which the reduced-precision solve serves as well
+        as an f64 one). The identity Hessian enters through sigma_z = 1;
         optional Drow damps selected rows (dual refresh damps ineq rows)."""
         dtype = z.dtype
         nz = self.docp.nz
@@ -442,13 +442,13 @@ class StructuredKKT:
         def run(rr, rrb):
             blocks = (A, B, E, F, rr, rrb)
             if self.solve_dtype is not None:
-                # mixed precision: factor+solve in solve_dtype (f32 native on
-                # TPU), everything around it stays f64 — __init__ docstring
+                # mixed precision: factor+solve in solve_dtype, everything
+                # around it stays f64 — __init__ docstring
                 blocks = tuple(b.astype(self.solve_dtype) for b in blocks)
             if self.algorithm == "cr":
-                # custom_vmap wrapper: un-batched -> _cr_solve; under vmap ->
-                # the lane-minor engine (solver/lanes.py), which keeps the
-                # batch axis in TPU lanes instead of the batch-major layout
+                # custom_vmap wrapper: un-batched -> chain-in-lanes CR; under
+                # vmap -> the lane-minor engine (solver/lanes.py), which keeps
+                # the batch axis last instead of the batch-major layout
                 from ctdirect_tpu.solver.lanes import cr_solve, cr_solve_nopivot
 
                 cr = cr_solve if self.pivot else cr_solve_nopivot
@@ -618,6 +618,11 @@ class StructuredKKT:
 # ----------------------------------------------------------------------------
 
 
+def _mm(a, b):
+    """Matrix product at the block solvers' pinned precision (kkt.PREC)."""
+    return jnp.matmul(a, b, precision=PREC)
+
+
 def _ruiz_scales(A, B, E, F):
     """Row-inf-norm scales for one symmetric Ruiz pass over the block
     tridiagonal + arrowhead system. Returns (d_step (N, bs), d_b (wb,)) with
@@ -653,12 +658,12 @@ def _block_matvec(A, B, E, F, X, xb):
     row i: A_i X_i + B_{i-1}^T X_{i-1} + B_i X_{i+1} + E_i xb;
     border: sum_i E_i^T X_i + F xb. Used by the f64 iterative-refinement
     sweeps around the reduced-precision solve."""
-    y = jnp.einsum("nij,nj->ni", A, X)
+    y = jnp.einsum("nij,nj->ni", A, X, precision=PREC)
     if B.shape[0] > 0:
-        y = y.at[1:].add(jnp.einsum("nji,nj->ni", B, X[:-1]))
-        y = y.at[:-1].add(jnp.einsum("nij,nj->ni", B, X[1:]))
-    y = y + jnp.einsum("niw,w->ni", E, xb)
-    yb = jnp.einsum("nsw,ns->w", E, X) + F @ xb
+        y = y.at[1:].add(jnp.einsum("nji,nj->ni", B, X[:-1], precision=PREC))
+        y = y.at[:-1].add(jnp.einsum("nij,nj->ni", B, X[1:], precision=PREC))
+    y = y + jnp.einsum("niw,w->ni", E, xb, precision=PREC)
+    yb = jnp.einsum("nsw,ns->w", E, X, precision=PREC) + _mm(F, xb)
     return y, yb
 
 
@@ -672,10 +677,10 @@ def _scan_solve(A, B, E, F, r, rb):
     def fwd(carry, inp):
         Ainv_p, Etil_p, rtil_p = carry
         A_i, B_p, E_i, r_i = inp
-        C = B_p.T @ Ainv_p
-        Atil = A_i - C @ B_p
-        Etil = E_i - C @ Etil_p
-        rtil = r_i - C @ rtil_p
+        C = _mm(B_p.T, Ainv_p)
+        Atil = A_i - _mm(C, B_p)
+        Etil = E_i - _mm(C, Etil_p)
+        rtil = r_i - _mm(C, rtil_p)
         Ainv = gj_inverse(Atil)
         return (Ainv, Etil, rtil), (Ainv, Etil, rtil)
 
@@ -689,17 +694,17 @@ def _scan_solve(A, B, E, F, r, rb):
     else:
         Ainvs, Etils, rtils = Ainv0[None], Etil0[None], rtil0[None]
 
-    AinvE = jnp.einsum("nij,njk->nik", Ainvs, Etils)
-    Ainvr = jnp.einsum("nij,nj->ni", Ainvs, rtils)
-    Ftil = F - jnp.einsum("nji,njk->ik", Etils, AinvE)
-    rbtil = rb - jnp.einsum("nji,nj->i", Etils, Ainvr)
+    AinvE = jnp.einsum("nij,njk->nik", Ainvs, Etils, precision=PREC)
+    Ainvr = jnp.einsum("nij,nj->ni", Ainvs, rtils, precision=PREC)
+    Ftil = F - jnp.einsum("nji,njk->ik", Etils, AinvE, precision=PREC)
+    rbtil = rb - jnp.einsum("nji,nj->i", Etils, Ainvr, precision=PREC)
     xb = gj_solve(Ftil, rbtil[:, None])[:, 0]
 
-    xN = Ainvr[N - 1] - AinvE[N - 1] @ xb
+    xN = Ainvr[N - 1] - _mm(AinvE[N - 1], xb)
 
     def bwd(x_next, inp):
         Ainv, rtil, Etil, B_i = inp
-        x_i = Ainv @ (rtil - B_i @ x_next - Etil @ xb)
+        x_i = _mm(Ainv, rtil - _mm(B_i, x_next) - _mm(Etil, xb))
         return x_i, x_i
 
     if N > 1:
@@ -715,12 +720,12 @@ def _scan_solve(A, B, E, F, r, rb):
 
 
 def _cr_solve_chain_lanes(A, B, E, F, r, rb):
-    """Single-instance CR with the CHAIN dim in TPU lanes (adapter around
+    """Single-instance CR with the CHAIN dim minor (adapter around
     lanes.cr_solve_chain_lanes: pads to a power of two and transposes the
     block arrays to (bs, bs, P)). Same math as _cr_solve; the layout keeps
-    the level width in the 128-wide lane dim instead of the major dim, which
-    is worth ~an order of magnitude on TPU for the level-batched Gauss-Jordan
-    ops (see lanes.py module docstring)."""
+    the level width in the minor dim instead of the major dim, so the
+    level-batched Gauss-Jordan ops work on contiguous (M,) slabs (see the
+    lanes.py module docstring)."""
     from ctdirect_tpu.solver.lanes import cr_solve_chain_lanes
 
     N, bs, _ = A.shape
@@ -752,16 +757,16 @@ def _cr_solve(A, B, E, F, r, rb):
     O(log N) sequential depth with ONE compiled level body.
 
     The textbook recursion halves the arrays each level, which under tracing
-    unrolls into log2(P) distinct programs (the r3 CR program was ~18k
-    StableHLO lines at N=250 and compiled for minutes on TPU). Here every
+    unrolls into log2(P) distinct level programs (~18k StableHLO lines at
+    N=250). Here every
     level instead operates on a constant-width P/2 array whose ACTIVE prefix
     halves; the padding (identity A, zero B/E/r) is self-maintaining through
     the level recurrences (zero couplings produce zero updates and identity
     Schur complements), so the whole up-sweep is a lax.scan over log2(P)
     iterations of one body, and the down-sweep a reverse scan whose carry's
     active prefix doubles (garbage stays exactly zero for the same reason).
-    ~log2(P)/2 x more block flops than the shrinking version — irrelevant on
-    TPU where each level is latency-bound — for a ~log2(P) x smaller program.
+    ~log2(P)/2 x more block flops than the shrinking version, for a
+    ~log2(P) x smaller program.
 
     Eliminating every odd block i yields, for its even neighbors:
         A'[i-1] -= B[i-1] A_i^{-1} B[i-1]^T        (left even)
@@ -809,19 +814,19 @@ def _cr_solve(A, B, E, F, r, rb):
         Eo, ro = E[1::2], r[1::2]
         Ainv_o = vinv(Ao)
 
-        CL = jnp.einsum("nij,njk->nik", Bl, Ainv_o)  # (H, bs, bs)
-        CR = jnp.einsum("nji,njk->nik", Br, Ainv_o)  # B_r^T A_o^{-1}
+        CL = jnp.einsum("nij,njk->nik", Bl, Ainv_o, precision=PREC)  # (H, bs, bs)
+        CR = jnp.einsum("nji,njk->nik", Br, Ainv_o, precision=PREC)  # B_r^T A_o^{-1}
 
-        A_new = Ae - jnp.einsum("nij,nkj->nik", CL, Bl)
-        A_new = A_new.at[1:].add(-jnp.einsum("nij,njk->nik", CR, Br)[:-1])
-        E_new = E[0::2] - jnp.einsum("nij,njk->nik", CL, Eo)
-        E_new = E_new.at[1:].add(-jnp.einsum("nij,njk->nik", CR, Eo)[:-1])
-        r_new = r[0::2] - jnp.einsum("nij,nj->ni", CL, ro)
-        r_new = r_new.at[1:].add(-jnp.einsum("nij,nj->ni", CR, ro)[:-1])
-        B_new = -jnp.einsum("nij,njk->nik", CL, Br)  # even_j -> even_{j+1}
+        A_new = Ae - jnp.einsum("nij,nkj->nik", CL, Bl, precision=PREC)
+        A_new = A_new.at[1:].add(-jnp.einsum("nij,njk->nik", CR, Br, precision=PREC)[:-1])
+        E_new = E[0::2] - jnp.einsum("nij,njk->nik", CL, Eo, precision=PREC)
+        E_new = E_new.at[1:].add(-jnp.einsum("nij,njk->nik", CR, Eo, precision=PREC)[:-1])
+        r_new = r[0::2] - jnp.einsum("nij,nj->ni", CL, ro, precision=PREC)
+        r_new = r_new.at[1:].add(-jnp.einsum("nij,nj->ni", CR, ro, precision=PREC)[:-1])
+        B_new = -jnp.einsum("nij,njk->nik", CL, Br, precision=PREC)  # even_j -> even_{j+1}
 
-        F = F - jnp.einsum("nji,njk,nkl->il", Eo, Ainv_o, Eo)
-        rb = rb - jnp.einsum("nji,njk,nk->i", Eo, Ainv_o, ro)
+        F = F - jnp.einsum("nji,njk,nkl->il", Eo, Ainv_o, Eo, precision=PREC)
+        rb = rb - jnp.einsum("nji,njk,nk->i", Eo, Ainv_o, ro, precision=PREC)
 
         # re-pad to constant width P (the active prefix just halved); padding
         # stays inert: identity A, zero couplings/rhs
@@ -852,11 +857,11 @@ def _cr_solve(A, B, E, F, r, rb):
         x_e_next = jnp.concatenate([x_e[1:], jnp.zeros((1, bs), dtype)], axis=0)
         rhs = (
             ro
-            - jnp.einsum("nji,nj->ni", Bl, x_e)
-            - jnp.einsum("nij,nj->ni", Br, x_e_next)
-            - jnp.einsum("nij,j->ni", Eo, xb)
+            - jnp.einsum("nji,nj->ni", Bl, x_e, precision=PREC)
+            - jnp.einsum("nij,nj->ni", Br, x_e_next, precision=PREC)
+            - jnp.einsum("nij,j->ni", Eo, xb, precision=PREC)
         )
-        x_o = jnp.einsum("nij,nj->ni", Ainv_o, rhs)
+        x_o = jnp.einsum("nij,nj->ni", Ainv_o, rhs, precision=PREC)
         return jnp.stack([x_e, x_o], axis=1).reshape(P, bs), None
 
     X, _ = jax.lax.scan(down, X, saves, reverse=True)

@@ -71,7 +71,7 @@ def _solve_paths(name, grid, scheme, paths, **opt_kw):
 )
 def test_control_match_1e4(name, grid, scheme, paths):
     """L-inf control agreement <= 1e-4 across independent KKT paths at the
-    equal-grid discrete optimum (VERDICT.md item 4)."""
+    equal-grid discrete optimum."""
     kw = {}
     if name == "orbit_transfer":
         kw = dict(max_iter=2500)

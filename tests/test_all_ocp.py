@@ -184,7 +184,7 @@ def test_truck_trailer_fine_grid_smoke():
 
 @pytest.mark.slow
 def test_truck_trailer_better_optimum_cross_scheme_certificate():
-    """BETTER_OK certification (VERDICT r4 item 5): the claim that this solver
+    """BETTER_OK certification: the claim that this solver
     reaches a BETTER local optimum than the reference's stored 59.28 must not
     be a single-scheme artifact. Two independent discretizations both reach
     formal KKT success at optima better than the reference (measured r5:

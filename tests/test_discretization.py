@@ -81,7 +81,7 @@ def test_schemes_free_t0tf_mayer(scheme):
     """Free-t0/tf Mayer problem across schemes incl. stagewise GL2/GL3
     (test_discretization.jl:61–80). The GL2 exclusion of round 1 is gone: the
     bound-relaxation + restoration + dual-refresh solver upgrades handle the
-    degenerate t0=tf default start (VERDICT.md item 1)."""
+    degenerate t0=tf default start."""
     p = get_problem("double_integrator_freet0tf")
     d = ct.transcribe(p.ocp, grid_size=25, scheme=scheme)
     s = solve_docp(d, options=IPMOptions(tol=1e-6, max_iter=300))

@@ -1,10 +1,9 @@
-"""Grid-scaling regression gate (VERDICT r2 item 8; reference anchor:
+"""Grid-scaling regression gate (reference anchor:
 test/archives/AD_backend.md:26–32 — the reference demonstrates N=10,000).
 
 The structured solvers are O(N) memory / O(N) (scan) or O(log N) (cr) depth;
 this CI test pins that at N=2000–4000 on CPU so grid scaling has a regression
-gate between TPU runs (the N=10k TPU run lives in benchmarks/sweep.py
-artifacts, LARGE_N_r*.json)."""
+gate between device runs (the N=10k cell runs through benchmarks/sweep.py)."""
 
 import numpy as np
 import pytest
